@@ -49,7 +49,7 @@ def main():
 
     # The engines are the thing under measurement; the junction records are
     # setup.  SZ_LCB_BENCH_DBG caches them as a .dbg artifact so repeated
-    # engine runs (and runs on a loaded tunnel) skip the graph stage.
+    # engine runs skip the graph stage.
     records = None
     dbg_path = os.environ.get("SZ_LCB_BENCH_DBG")
     if dbg_path and os.path.exists(dbg_path):

@@ -1,6 +1,6 @@
-"""sibeliaz_tpu — a TPU-native whole-genome aligner / locally collinear block (LCB) builder.
+"""sibeliaz_tpu — a device-accelerated whole-genome aligner / locally collinear block (LCB) builder.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of SibeliaZ
+A from-scratch JAX/XLA re-design of the capabilities of SibeliaZ
 (reference: medvedevgroup/SibeliaZ v1.2.7):
 
   * compacted de Bruijn graph junction enumeration (TwoPaCo stage) as a
@@ -12,7 +12,7 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of SibeliaZ
     wavefront DP (``sibeliaz_tpu.align``),
   * GFF3 / MAF serialization byte-compatible with the reference
     (``sibeliaz_tpu.output``),
-  * multi-chip scaling via jax.sharding meshes with sequence-axis halo
+  * multi-device scaling via jax.sharding meshes with sequence-axis halo
     sharding (``sibeliaz_tpu.parallel``).
 
 64-bit integer support is required for exact k-mer codes (2 bits/char,
@@ -26,26 +26,25 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the junction kernels compile in minutes on
-# the remote TPU toolchain; caching makes that a once-per-machine cost.
-try:
-    _cache_dir = _os.environ.get(
-        "SIBELIAZ_TPU_COMPILE_CACHE",
-        _os.path.join(
-            _os.environ.get(
-                "XDG_CACHE_HOME",
-                _os.path.join(_os.path.expanduser("~"), ".cache"),
-            ),
-            "sibeliaz_tpu",
-            "jax_cache",
-        ),
+
+def compile_cache_dir(environ=_os.environ):
+    """Where this package keeps JAX's persistent compilation cache, or None
+    when JAX_COMPILATION_CACHE_DIR is set (JAX then reads it itself)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    # a fixed path inside the checkout: the path is part of the cache key
+    return _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
     )
-    if _cache_dir and _cache_dir != "0":
-        _os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-except Exception:  # pragma: no cover — cache is best-effort
-    pass
+
+
+# Persistent compilation cache: caching makes the junction kernels'
+# compile a once-per-checkout cost.
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
+    jax.config.update("jax_compilation_cache_dir", _cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 from sibeliaz_tpu.config import Config  # noqa: E402
 

@@ -22,7 +22,7 @@ insertion; end node = highest score, then smallest topo rank; group
 readiness resolved smallest-group-id-first.
 
 This pure-Python version is the differential-test oracle for the native
-C++ engine (align/native/poa.cpp) and the batched TPU path.
+C++ engine (align/native/poa.cpp) and the batched device path.
 """
 
 from __future__ import annotations

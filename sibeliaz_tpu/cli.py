@@ -77,7 +77,7 @@ def make_config(args) -> Config:
 def run(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="sibeliaz-tpu",
-        description="TPU-native whole-genome LCB construction and alignment",
+        description="Device-accelerated whole-genome LCB construction and alignment",
     )
     _add_common(ap)
     args = ap.parse_args(argv)

@@ -1,7 +1,7 @@
 """Brute-force junction enumeration oracle (host, dict-based).
 
 This module *defines* the junction semantics of the graph-construction stage
-for the whole framework; the TPU implementation (graph/construct.py) must
+for the whole framework; the device implementation (graph/construct.py) must
 match it exactly, and unit tests enforce that.  The semantics reconstruct
 TwoPaCo's observable contract (the submodule is not mounted; see SURVEY.md §0
 mount caveat) from the interchange format (common/junctionapi.h), the way

@@ -79,8 +79,8 @@ class DeviceTables:
         seq_off = table.seq_off
         # All flat arrays are padded to power-of-two buckets so every jit
         # program over DeviceTables caches across inputs of similar size
-        # (each distinct table shape is otherwise a fresh multi-minute
-        # remote compile on this backend).  Every consumer clips indices
+        # (each distinct table shape is otherwise a fresh compile).  Every
+        # consumer clips indices
         # and masks junk-row results, so padding is semantics-free;
         # offset-style arrays pad with their LAST value (so derived counts
         # for out-of-range ids are 0), data arrays with 0 / 'N'.

@@ -4,7 +4,7 @@ This module is the executable *specification* of the LCB stage: every
 decision rule of the reference's BlocksFinder/Path machinery
 (SibeliaZ-LCB/blocksfinder.h, path.h) is reproduced, including its
 load-bearing quirks, so that faster engines (the native C++ engine and the
-batched TPU path) can be differential-tested against it — and it in turn is
+batched device path) can be differential-tested against it — and it in turn is
 differential-tested against a build of the actual reference binary.
 
 Replicated decision rules (citations into /root/reference/SibeliaZ-LCB/):

@@ -5,7 +5,8 @@ across hosts by sharding the sequence axis globally: every process holds a
 contiguous slice of the 'N'-joined code stream, `jax.make_array` assembles
 the global array over an all-hosts Mesh, and the same sharded junction step
 (parallel/sharded.py) runs under jit — XLA routes the halo ppermute and the
-bucket all_to_all over ICI/DCN.
+bucket all_to_all through NCCL, over NVLink within a host and the network
+between hosts.
 
 Host-side assembly (record compaction, id ranks) happens on process 0 from
 the globally-gathered verdict masks; LCB analysis then proceeds on that

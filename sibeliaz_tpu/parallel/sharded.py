@@ -1,4 +1,4 @@
-"""Multi-chip junction enumeration: sequence-axis sharding with k-halo
+"""Multi-device junction enumeration: sequence-axis sharding with k-halo
 exchange and hash-bucket all-to-all (SURVEY.md §2.3 P1).
 
 Design: the genome byte stream is sharded along the sequence axis over a 1-D
@@ -6,7 +6,8 @@ device mesh ("seq") — the direct analog of context/sequence parallelism.
 
   1. each shard computes forward/rc k-mer codes for its local positions;
      the k bytes that windows at the shard edge need come from the right
-     neighbor via a single `ppermute` halo exchange (ICI neighbor traffic),
+     neighbor via a single `ppermute` halo exchange (neighbor traffic,
+     which XLA hands to NCCL over NVLink on GPUs),
   2. vertex classes must be analyzed globally, so occurrences are routed to
      their owner device by canonical-code hash with one `all_to_all`; each
      device sorts its buckets, computes the junction predicates with
@@ -313,9 +314,9 @@ def build_junctions_sharded(
     cap = min(L_local, -(-int(L_local / n_dev * 1.3) // 8) * 8 + 8)
     while True:
         mesh, step = _compiled(k, n_dev, len(joined), tuple(devices), cap)
-        arr = jax.device_put(
-            jnp.asarray(codes), NamedSharding(mesh, P(_AXIS))
-        )
+        # straight from the host to each device's slice (no staging copy
+        # of the whole stream on one device)
+        arr = jax.device_put(codes, NamedSharding(mesh, P(_AXIS)))
         isj, positive, first, ovf = step(arr)
         if not np.asarray(ovf).any():
             break

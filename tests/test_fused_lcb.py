@@ -100,8 +100,8 @@ def test_fused_chunking_independent(monkeypatch):
 
 
 def test_fused_lane_chunk_env_independent(monkeypatch):
-    """SZ_FUSED_LANE_CHUNK (round-3 mitigation knob for the large-L TPU
-    worker fault) must be result-invariant: lanes are independent, so a
+    """SZ_FUSED_LANE_CHUNK (debug cap on lanes per dispatch) must be
+    result-invariant: lanes are independent, so a
     hard cap on lanes-per-dispatch only changes dispatch count."""
     _, _, _, table, eng = build(524, length=1000, mut=0.03)
     bundles = eng.make_bundles()[:24]

@@ -1,4 +1,4 @@
-"""Graph-construction stage: oracle sanity + TPU implementation parity."""
+"""Graph-construction stage: oracle sanity + device implementation parity."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""TPU-batched POA must produce exactly the spec's MSA."""
+"""Device-batched POA must produce exactly the spec's MSA."""
 
 import numpy as np
 import pytest
@@ -57,8 +57,8 @@ def test_mixed_copy_counts():
 
 def test_oversized_single_block_falls_back():
     """A block whose single-dispatch DP plan exceeds the HBM budget must
-    return None (native fallback) instead of dispatching — a modeled-9.4G
-    single-block dispatch compiled to a 15.84G plan and OOMed the chip."""
+    return None (native fallback) instead of dispatching: its modeled
+    9.4 GB of scratch exceeds the CPU backend's budget."""
     import numpy as np
 
     from sibeliaz_tpu.align import tpu_poa
